@@ -3,5 +3,5 @@
 import os
 import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from gnss_dsp_tpu.cli.acquire import main
+from gnss_dsp.cli.acquire import main
 sys.exit(main('gps-l5i', sys.argv[1:]))

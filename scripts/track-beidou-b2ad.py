@@ -3,5 +3,5 @@
 import os
 import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from gnss_dsp_tpu.cli.track import main
+from gnss_dsp.cli.track import main
 sys.exit(main('beidou-b2ad', sys.argv[1:]))

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.models.codes import gps_ca
-from gnss_dsp_tpu.acquire import acquire_signal
-from gnss_dsp_tpu.utils import synth
+from gnss_dsp.models import get_signal
+from gnss_dsp.models.codes import gps_ca
+from gnss_dsp.acquire import acquire_signal
+from gnss_dsp.utils import synth
 
 
 @pytest.mark.parametrize("doppler,code_phase", [(2400.0, 817.5), (-3150.0, 12.25)])
@@ -48,8 +48,8 @@ def test_acquisition_matches_reference_search_numerics():
     ).astype(np.complex128)
 
     # numpy oracle
-    from gnss_dsp_tpu.models.codes import resample_host
-    from gnss_dsp_tpu.ops import nco as nco_ops
+    from gnss_dsp.models.codes import resample_host
+    from gnss_dsp.ops import nco as nco_ops
 
     incr = sig.code_length / n
     c = np.fft.fft(resample_host(gps_ca.ca_code(prn), 0, 0, incr, n))
@@ -78,9 +78,9 @@ def test_code_fft_device_cache_same_results():
     cache-cleared call all agree exactly."""
     import numpy as np
 
-    from gnss_dsp_tpu.acquire import engine as eng
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu.utils.synth import synth_iq
+    from gnss_dsp.acquire import engine as eng
+    from gnss_dsp.models import get_signal
+    from gnss_dsp.utils.synth import synth_iq
 
     sig = get_signal("gps-l1")
     import dataclasses

@@ -5,7 +5,7 @@ reference spreads over 65 scripts, SURVEY.md §2.3-2.4)."""
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.models.signal import all_signals
+from gnss_dsp.models.signal import all_signals
 
 SIGS = all_signals()
 

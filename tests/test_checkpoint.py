@@ -9,11 +9,11 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.track.driver import TrackChannel, make_params, track_file
-from gnss_dsp_tpu.track.engine import init_state, track_scan
-from gnss_dsp_tpu.track import checkpoint
-from gnss_dsp_tpu.utils.synth import synth_iq, to_int8_iq
+from gnss_dsp.models import get_signal
+from gnss_dsp.track.driver import TrackChannel, make_params, track_file
+from gnss_dsp.track.engine import init_state, track_scan
+from gnss_dsp.track import checkpoint
+from gnss_dsp.utils.synth import synth_iq, to_int8_iq
 
 
 def _setup(chans=2, ms=300, fs=2.048e6):
@@ -61,9 +61,9 @@ def test_acquisition_sharding_determinism():
     """Same grid, 1-device jit vs 8-device mesh: identical results
     (the determinism tier standing in for race detection, SURVEY §5)."""
     import jax
-    from gnss_dsp_tpu.acquire.engine import acquire_signal
-    from gnss_dsp_tpu.parallel.acquire import acquire_signal_sharded
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
+    from gnss_dsp.acquire.engine import acquire_signal
+    from gnss_dsp.parallel.acquire import acquire_signal_sharded
+    from gnss_dsp.parallel.mesh import make_mesh
 
     sig = get_signal("gps-l1")
     import dataclasses
@@ -89,8 +89,8 @@ def test_acquisition_sharding_determinism():
 def test_code_recovery():
     """Recover an 'unknown' B2b code from synthetic samples the way the
     reference captured the real ones (track-beidou-b2bi.py:46-53)."""
-    from gnss_dsp_tpu.track.recover import CodeRecovery
-    from gnss_dsp_tpu.ops import nco as nco_ops
+    from gnss_dsp.track.recover import CodeRecovery
+    from gnss_dsp.ops import nco as nco_ops
 
     sig = get_signal("beidou-b2bi")
     prn = 25
@@ -135,7 +135,7 @@ def test_cli_kill_resume_bitexact(tmp_path):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = os.path.join(repo, "scripts", "track-gps-l1.py")
     ck = os.path.join(tmp_path, "ck.npz")
-    env = dict(os.environ, GNSS_DSP_CPU="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     base = [sys.executable, "-u", script, "--loop-dwells", "50,50",
             "--chunk-ms", "100", path, "%d" % fs, "0",
             str(prn), str(dop), str(cp0)]
@@ -187,9 +187,9 @@ def test_mesh_checkpoint_resume_bitexact(tmp_path):
     resumed run legitimately replays the tail with identical values)."""
     import io
 
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-    from gnss_dsp_tpu.utils.synth import to_int8_iq
+    from gnss_dsp.parallel.mesh import make_mesh
+    from gnss_dsp.track.driver import TrackChannel, track_file
+    from gnss_dsp.utils.synth import to_int8_iq
 
     sig = get_signal("gps-l1")
     fs = 2.048e6

@@ -1,4 +1,4 @@
-"""--mesh N on the acquire/track CLIs (VERDICT r2 item 8): the same
+"""--mesh N on the acquire/track CLIs: the same
 front doors users run route to the parallel/ sharded engines and
 reproduce the single-device rows bit-for-bit on a virtual 8-device CPU
 mesh (the engine-level value-equality lives in test_parallel.py; this
@@ -17,7 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(script, args, mesh: int | None):
-    env = dict(os.environ, GNSS_DSP_CPU="1",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     extra = ["--mesh", str(mesh)] if mesh else []
     out = subprocess.run(
@@ -29,8 +29,8 @@ def _run(script, args, mesh: int | None):
 
 
 def _mkfile(tmp_path, prns_dops_cps, fname):
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu.utils.synth import synth_iq, to_int8_iq
+    from gnss_dsp.models import get_signal
+    from gnss_dsp.utils.synth import synth_iq, to_int8_iq
 
     sig = get_signal("gps-l1")
     fs = 4.096e6

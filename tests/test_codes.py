@@ -1,7 +1,7 @@
 """Data-fidelity tests: every PRN code generator must reproduce the
 reference's chip sequences exactly.
 
-gnss_dsp_tpu/models/codes/data/reference_code_hashes.json holds sha256
+gnss_dsp/models/codes/data/reference_code_hashes.json holds sha256
 digests of every {0,1} chip sequence the reference implementation
 generates (produced by tools/extract_icd_tables.py; packaged so the
 per-module `python -m ...codes.<module>` ICD self-checks can reach it).  These are the strongest available golden
@@ -17,11 +17,11 @@ import os
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.models.codes import (
+from gnss_dsp.models.codes import (
     beidou, galileo, glonass, gps_ca, gps_l1c, gps_l2c, gps_l5, gps_p, xona,
 )
 
-from gnss_dsp_tpu.models.codes import selftest
+from gnss_dsp.models.codes import selftest
 
 HASHES = selftest.HASHES
 
@@ -60,7 +60,7 @@ def test_gps_l2cl():
 
 
 def test_gps_l2cm_end_states():
-    from gnss_dsp_tpu.models.codes.data import pairs
+    from gnss_dsp.models.codes.data import pairs
 
     ends = pairs("gps_l2cm_end_state")
     for prn in (1, 32, 63, 159, 210):
@@ -156,7 +156,7 @@ def test_beidou_b2b():
 def test_beidou_b2b_generator_matches_memory():
     """The generator and memory tiers agree where they overlap (the
     reference keeps b2bd as a cross-check of b2bi; b2bd.py:1)."""
-    from gnss_dsp_tpu.models.codes import data
+    from gnss_dsp.models.codes import data
 
     gen_prns = set(int(p) for p in data.table("bds_b2bd_init_prns"))
     prns = [p for p in beidou.b2b_prns() if p in gen_prns][:6]
@@ -205,13 +205,13 @@ def test_xona():
 # ---------------- standalone-module ICD self-check UX
 
 def test_module_selftest_entrypoint():
-    """`python -m gnss_dsp_tpu.models.codes.gps_ca` mirrors the
+    """`python -m gnss_dsp.models.codes.gps_ca` mirrors the
     reference's per-module `__main__` ICD checks (gps/ca.py:135-149)."""
     import subprocess
     import sys
 
     out = subprocess.run(
-        [sys.executable, "-m", "gnss_dsp_tpu.models.codes.gps_ca"],
+        [sys.executable, "-m", "gnss_dsp.models.codes.gps_ca"],
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-1000:]
     assert "ALL OK" in out.stdout and "210 PRNs OK" in out.stdout

@@ -8,8 +8,8 @@ import dataclasses
 
 import numpy as np
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.utils.synth import synth_iq
+from gnss_dsp.models import get_signal
+from gnss_dsp.utils.synth import synth_iq
 
 
 def _err_chips(sig, r, cp0):
@@ -21,8 +21,8 @@ def test_coherent_beats_noncoherent_at_low_cn0():
     """BeiDou B1I (NH20 overlay): cn0 = 27 dB-Hz, 40 ms of data.  The
     1 ms + 40 non-coherent sums search misses the code phase by hundreds
     of chips; one NH20-wiped 20 ms coherent x 2 groups nails it."""
-    from gnss_dsp_tpu.acquire.engine import acquire_signal
-    from gnss_dsp_tpu.acquire.coherent import acquire_signal_coherent
+    from gnss_dsp.acquire.engine import acquire_signal
+    from gnss_dsp.acquire.coherent import acquire_signal_coherent
 
     sig = dataclasses.replace(get_signal("beidou-b1i"), acq_fs=4.096e6)
     prn, doppler, cp0, cn0, ms = 34, 20.0, 500.0, 27.0, 40
@@ -47,7 +47,7 @@ def test_coherent_noiseless_alignment_l5i():
     """GPS L5I (NH10): noiseless sanity — exact code phase and doppler
     bin through the 10 ms coherent path, arbitrary overlay alignment in
     the data (block 0 starts mid-overlay)."""
-    from gnss_dsp_tpu.acquire.coherent import acquire_signal_coherent
+    from gnss_dsp.acquire.coherent import acquire_signal_coherent
 
     sig = dataclasses.replace(get_signal("gps-l5i"), acq_fs=12.288e6)
     prn, doppler, cp0 = 25, -40.0, 3333.0
@@ -65,7 +65,7 @@ def test_coherent_noiseless_alignment_l5i():
 def test_coherent_no_secondary_plain():
     """Signals without an overlay ride the same engine with an all-ones
     secondary (plain extended coherent)."""
-    from gnss_dsp_tpu.acquire.coherent import acquire_signal_coherent
+    from gnss_dsp.acquire.coherent import acquire_signal_coherent
 
     sig = dataclasses.replace(get_signal("gps-l1"), acq_fs=2.048e6)
     prn, doppler, cp0 = 7, 30.0, 222.0
@@ -84,7 +84,7 @@ def test_coherent_fdma_channel_offset():
     folds the channel's band offset into its doppler grid — a planted
     channel -3 signal is found at its true residual doppler and code
     phase (the CLI's `--channel K --coherent M` path)."""
-    from gnss_dsp_tpu.acquire.coherent import acquire_signal_coherent
+    from gnss_dsp.acquire.coherent import acquire_signal_coherent
 
     sig = dataclasses.replace(get_signal("glonass-l1"), acq_fs=2.048e6)
     chan, doppler, cp0 = -3, 40.0, 123.0
@@ -113,9 +113,9 @@ def test_acquire_to_track_overlay_handoff():
     from the user."""
     import io as _io
 
-    from gnss_dsp_tpu.acquire.coherent import acquire_signal_coherent
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-    from gnss_dsp_tpu.utils.synth import to_int8_iq
+    from gnss_dsp.acquire.coherent import acquire_signal_coherent
+    from gnss_dsp.track.driver import TrackChannel, track_file
+    from gnss_dsp.utils.synth import to_int8_iq
 
     sig = dataclasses.replace(get_signal("beidou-b1i"), acq_fs=4.096e6)
     prn, doppler, cp0, cn0 = 34, 20.0, 500.0, 30.0

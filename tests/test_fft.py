@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.ops import cplx, fft
+from gnss_dsp.ops import cplx, fft
 
 
 @pytest.mark.parametrize("n", [128, 512, 1024, 4096, 30690, 15345, 16384])

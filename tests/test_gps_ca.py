@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.models.codes import gps_ca, resample_host
+from gnss_dsp.models.codes import gps_ca, resample_host
 
 # IS-GPS-200 Table 3-Ia/3-Ib "First 10 Chips" (octal).  Spot set spans
 # GPS (1-32), SBAS (120-158), QZSS (193-202) and the extension range.

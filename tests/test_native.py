@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from gnss_dsp_tpu.utils import io as uio
-from gnss_dsp_tpu.utils import native
+from gnss_dsp.utils import io as uio
+from gnss_dsp.utils import native
 
 
 def test_deinterleave_matches_numpy(rng):

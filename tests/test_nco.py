@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.ops import nco
+from gnss_dsp.ops import nco
 
 
 @pytest.mark.parametrize(

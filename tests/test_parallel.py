@@ -1,12 +1,12 @@
 """Mesh twins vs single-device engines on the 8-virtual-device CPU mesh
-(VERDICT round-1 item 8: sharded FDMA + serial search)."""
+(sharded FDMA + serial search)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.utils.synth import synth_iq
+from gnss_dsp.models import get_signal
+from gnss_dsp.utils.synth import synth_iq
 
 
 def make_iq(sig, prn, fs, ms, doppler, code_phase, cn0=None, chan=0):
@@ -23,9 +23,9 @@ def make_iq(sig, prn, fs, ms, doppler, code_phase, cn0=None, chan=0):
 def test_fdma_sharded_matches_single():
     """All 15 GLONASS L1 channels: channel-sharded mesh program equals the
     single-device all-channel grid program."""
-    from gnss_dsp_tpu.acquire.engine import acquire_signal_fdma
-    from gnss_dsp_tpu.parallel.acquire import acquire_signal_fdma_sharded
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
+    from gnss_dsp.acquire.engine import acquire_signal_fdma
+    from gnss_dsp.parallel.acquire import acquire_signal_fdma_sharded
+    from gnss_dsp.parallel.mesh import make_mesh
 
     import dataclasses
     sig = dataclasses.replace(get_signal("glonass-l1"), acq_fs=2.048e6)
@@ -51,9 +51,9 @@ def test_fdma_sharded_matches_single():
 def test_serial_sharded_matches_single():
     """L2CL 75-hypothesis assisted search, hypotheses sharded over all 8
     devices: same winner and per-hypothesis metric as single-device."""
-    from gnss_dsp_tpu.acquire.serial import serial_search
-    from gnss_dsp_tpu.parallel.acquire import serial_search_sharded
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
+    from gnss_dsp.acquire.serial import serial_search
+    from gnss_dsp.parallel.acquire import serial_search_sharded
+    from gnss_dsp.parallel.mesh import make_mesh
 
     sig = get_signal("gps-l2cl")
     fs = 2.048e6
@@ -73,8 +73,8 @@ def test_serial_sharded_matches_single():
 
 def test_serial_sharded_glonass_p():
     """GLONASS P 1000 hypotheses sharded; exact-k recovery."""
-    from gnss_dsp_tpu.parallel.acquire import serial_search_sharded
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
+    from gnss_dsp.parallel.acquire import serial_search_sharded
+    from gnss_dsp.parallel.mesh import make_mesh
 
     sig = get_signal("glonass-l1-p")
     fs = 4.096e6
@@ -91,15 +91,15 @@ def test_serial_sharded_glonass_p():
 def test_tracking_sharded_matches_single():
     """Channel-sharded tracking (parallel/track.track_scan_sharded) is
     VALUE-equal to the single-device scan — every row and every state
-    leaf, not just shapes (VERDICT r2 item 4).  GLONASS-style per-channel
+    leaf, not just shapes.  GLONASS-style per-channel
     ratios and FDMA coffset increments included so a replicated-vs-
     sharded mixup in either would be caught."""
     import jax.numpy as jnp
 
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
-    from gnss_dsp_tpu.parallel.track import track_scan_sharded
-    from gnss_dsp_tpu.track.driver import make_params
-    from gnss_dsp_tpu.track.engine import init_state, track_scan
+    from gnss_dsp.parallel.mesh import make_mesh
+    from gnss_dsp.parallel.track import track_scan_sharded
+    from gnss_dsp.track.driver import make_params
+    from gnss_dsp.track.engine import init_state, track_scan
 
     sig = get_signal("gps-l1")
     fs = 2.048e6
@@ -145,22 +145,23 @@ def test_tracking_sharded_matches_single():
     np.testing.assert_array_equal(np.asarray(ri_a), np.asarray(ri_c))
 
 
-def test_tracking_sharded_fused_matches_single(monkeypatch):
-    """The FUSED whole-loop kernel under shard_map (parallel/track
-    fused branch): per-device channel shards through pallas, rows and
-    state value-equal to the single-device fused run (interpret mode on
-    the 8-virtual-device CPU mesh)."""
+def test_tracking_sharded_coherent_matches_single():
+    """Extended-coherent tracking under the mesh: per-channel overlays,
+    sigp lanes (coherent span M, overlay period) and carrier-offset
+    increments shard with the channels through shard_map — rows and
+    state bit-equal to the single-device coherent scan."""
     import jax.numpy as jnp
 
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
-    from gnss_dsp_tpu.parallel.track import track_scan_sharded
-    from gnss_dsp_tpu.track.driver import build_code_rows, make_params
-    from gnss_dsp_tpu.track.engine import init_state, track_scan
+    from gnss_dsp.parallel.mesh import make_mesh
+    from gnss_dsp.parallel.track import track_scan_sharded
+    from gnss_dsp.track.driver import make_params
+    from gnss_dsp.track.engine import (
+        SIGP_COH, SIGP_NOV, init_state, sigp_from_params, track_scan)
 
-    monkeypatch.setenv("GNSS_DSP_PALLAS_INTERPRET", "1")
     sig = get_signal("gps-l1")
     fs = 2.048e6
     C = 8
+    M = 4
     prns = list(range(1, C + 1))
     dops = np.linspace(-3000.0, 3000.0, C)
     phases = np.linspace(10.0, 950.0, C)
@@ -169,31 +170,33 @@ def test_tracking_sharded_fused_matches_single(monkeypatch):
                      sig.chip_rate, fs, n, doppler_hz=d, code_phase=cp,
                      cn0_dbhz=None, carrier_ratio=1540.0)
             for p, d, cp in zip(prns[:3], dops[:3], phases[:3]))
+    xd = (jnp.asarray(x.real.astype(np.float32)),
+          jnp.asarray(x.imag.astype(np.float32)))
     params = make_params(sig, fs, coffset=1000.0, loop_dwells=(10, 10),
-                         use_pallas=True)
-    assert params.fused_scan
-    code_np = sig.code_table(tuple(prns)).astype(np.int8)
-    rows_np, pad = build_code_rows(code_np, params, sig.chip_rate / fs)
-    rows_ext = jnp.asarray(rows_np)
-    tail = pad + (-(n + pad)) % 1024
-    xp = np.concatenate([x, np.zeros(tail, np.complex64)])
-    xd = (jnp.asarray(xp.real.astype(np.float32)),
-          jnp.asarray(xp.imag.astype(np.float32)))
-    tab = jnp.asarray(code_np)
+                         coherent_blocks=M)
+    rng = np.random.default_rng(5)
+    ovl = rng.choice([-1.0, 1.0], (C, 8)).astype(np.float32)
+    sigp = np.array(sigp_from_params(params, C))
+    # channels alternate coherent spans (M, 1) and overlay periods (8, 4)
+    sigp[:, SIGP_COH] = np.where(np.arange(C) % 2 == 0, M, 1)
+    sigp[:, SIGP_NOV] = np.where(np.arange(C) % 4 < 2, 8, 4)
+    sigp = jnp.asarray(sigp)
+    tab = jnp.asarray(sig.code_table(tuple(prns)).astype(np.int8))
     ratios = jnp.full((C,), 1540.0, jnp.float32)
-    cdf = jnp.asarray(np.full(C, -250000, np.int32))
+    cdf = jnp.asarray((np.arange(C) * 1000 - 250000).astype(np.int32))
 
     def fresh():
         return init_state(code_p=phases, code_f_off=np.zeros(C),
                           carrier_p=np.zeros(C), carrier_f=dops)
 
+    kw = dict(ratios=ratios, coffset_df=cdf, sigp=sigp,
+              overlay=jnp.asarray(ovl))
     st_a, rf_a, ri_a = track_scan(xd, jnp.int32(n), tab, fresh(), params,
-                                  40, ratios=ratios, coffset_df=cdf,
-                                  code_rows_ext=rows_ext)
+                                  30, **kw)
+    assert float(np.abs(np.asarray(st_a.cacc)).max()) > 0.0
     mesh = make_mesh(8, time_shards=1)
     st_b, rf_b, ri_b = track_scan_sharded(
-        mesh, xd, jnp.int32(n), tab, fresh(), params, 40, ratios=ratios,
-        coffset_df=cdf, code_rows_ext=rows_ext)
+        mesh, xd, jnp.int32(n), tab, fresh(), params, 30, **kw)
     np.testing.assert_array_equal(np.asarray(rf_a), np.asarray(rf_b))
     np.testing.assert_array_equal(np.asarray(ri_a), np.asarray(ri_b))
     for name in st_a._fields:

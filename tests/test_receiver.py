@@ -7,10 +7,10 @@ import io
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-from gnss_dsp_tpu.track.receiver import track_receiver
-from gnss_dsp_tpu.utils import synth
+from gnss_dsp.models import get_signal
+from gnss_dsp.track.driver import TrackChannel, track_file
+from gnss_dsp.track.receiver import track_receiver
+from gnss_dsp.utils import synth
 
 FS = 4.096e6
 # band -> [(signal, prn, doppler, code phase, coffset)]
@@ -43,13 +43,11 @@ def _rows(rows, n=30):
     return np.array([[r[k] for k in keys] for r in rows[:n]])
 
 
-@pytest.mark.parametrize("engine", ["xla", "fused"])
-def test_receiver_matches_per_band_multi(engine, monkeypatch):
-    if engine == "fused":
-        monkeypatch.setenv("GNSS_DSP_PALLAS_INTERPRET", "1")
-        from gnss_dsp_tpu.track import driver as drv
-
-        monkeypatch.setattr(drv, "_pallas_ok", lambda *a, **k: True)
+@pytest.mark.parametrize("chunk_ms", [2000.0, 4.0],
+                         ids=["one_chunk", "refills"])
+def test_receiver_matches_per_band_multi(chunk_ms):
+    """chunk_ms=4 refills every few blocks: each band's segment is
+    rebased on its own consumed count between scans."""
     data = {b: _band_stream(rows) for b, rows in BANDS.items()}
 
     # per-band reference runs (track_file multi)
@@ -71,7 +69,11 @@ def test_receiver_matches_per_band_multi(engine, monkeypatch):
                  for _, p, d, cp, _co in rows]
         bands.append((io.BytesIO(data[b]), sigs, chans,
                       [co for *_x, co in rows]))
-    out = track_receiver(bands, FS, loop_dwells=(8, 8), max_blocks=32)
+    # stalled steps at each chunk end count against max_blocks: give the
+    # refilled run room to emit the compared rows
+    out = track_receiver(bands, FS, loop_dwells=(8, 8),
+                         max_blocks=32 if chunk_ms > 100 else 64,
+                         chunk_ms=chunk_ms)
 
     k = 0
     for b, rows in BANDS.items():
@@ -84,14 +86,10 @@ def test_receiver_matches_per_band_multi(engine, monkeypatch):
             k += 1
 
 
-def test_receiver_coherent_matches_per_band(monkeypatch):
+def test_receiver_coherent_matches_per_band():
     """Per-channel extended-coherent spans inside the one-program
     receiver (coherent_blocks=-1: each signal's own overlay length;
     GPS L1 stays non-coherent) match the per-band multi runs."""
-    monkeypatch.setenv("GNSS_DSP_PALLAS_INTERPRET", "1")
-    from gnss_dsp_tpu.track import driver as drv
-
-    monkeypatch.setattr(drv, "_pallas_ok", lambda *a, **k: True)
 
     coh_bands = {
         0: [("gps-l1", 7, 900.0, 317.25, 200.0)],
@@ -140,9 +138,9 @@ def test_receiver_coherent_matches_per_band(monkeypatch):
             a = _rows(ref[b][j])
             r = _rows(out[k].rows)
             assert a.shape == r.shape and a.shape[0] >= 20, (name, a.shape)
-            # the one-program W envelope differs from the per-band one, so
-            # tile factorization / summation order differ; 20-block
-            # coherent sums amplify that fp scheduling noise (~1%)
+            # the one-program nmax envelope differs from the per-band
+            # one, so summation orders differ; 20-block coherent sums
+            # amplify that fp scheduling noise (~1%)
             np.testing.assert_allclose(a, r, rtol=2e-2, atol=2e-2,
                                        err_msg=f"band{b}:{name}")
             k += 1

@@ -12,8 +12,8 @@ import sys
 
 import numpy as np
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.utils.synth import synth_iq, to_int8_iq
+from gnss_dsp.models import get_signal
+from gnss_dsp.utils.synth import synth_iq, to_int8_iq
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,7 +44,7 @@ def test_b2bi_cli_recovers_code(tmp_path):
     path, code = _make_b2bi_file(tmp_path, prn, fs, ms=100, doppler=doppler,
                                  rng=rng)
     chips_path = os.path.join(tmp_path, "track-chips.dat")
-    env = dict(os.environ, GNSS_DSP_CPU="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "track-beidou-b2bi.py"),
          "--loop-dwells", "10,10", "--recover-warmup", "10",
@@ -67,14 +67,14 @@ def test_b2bi_cli_recovers_code(tmp_path):
 
 
 def test_recovery_under_mesh_matches_single(tmp_path):
-    """Unknown-code recovery composes with --mesh (round 5): the
-    recovery bins ride the state pytree, which the non-fused sharded
+    """Unknown-code recovery composes with --mesh: the
+    recovery bins ride the state pytree, which the sharded
     scan partitions over 'sat' like every other [C, ...] leaf — bins
     and rows bit-equal to the single-device run."""
     import io
 
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
+    from gnss_dsp.parallel.mesh import make_mesh
+    from gnss_dsp.track.driver import TrackChannel, track_file
 
     fs = 22.0e6
     prn, doppler = 19, 800.0
@@ -100,13 +100,13 @@ def test_recovery_under_mesh_matches_single(tmp_path):
 
 
 def test_multi_recovers_two_codes_one_pass(tmp_path):
-    """B2bi + B2bq unknown-code recovery in ONE mixed scan (round 5):
+    """B2bi + B2bq unknown-code recovery in ONE mixed scan:
     the reference captured the two B2b memory codes with two separate
     process runs; here both channels' per-chip bins fill in a single
     pass and each recovers its own planted code."""
     import io
 
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
+    from gnss_dsp.track.driver import TrackChannel, track_file
 
     fs = 22.0e6
     ms = 100

@@ -13,10 +13,10 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.acquire.engine import acquire_signal
-from gnss_dsp_tpu.acquire.serial import serial_search
-from gnss_dsp_tpu.utils.synth import synth_iq
+from gnss_dsp.models import get_signal
+from gnss_dsp.acquire.engine import acquire_signal
+from gnss_dsp.acquire.serial import serial_search
+from gnss_dsp.utils.synth import synth_iq
 
 SUBC = {"gps-l1cp": "tmboc", "gps-l1cd": "boc11", "galileo-e1b": "cboc",
         "galileo-e1c": "cboc", "beidou-b1cd": "boc11", "beidou-b1cp": "boc11",
@@ -148,8 +148,8 @@ def test_serial_glonass_p():
     ("beidou-b1i", 34, 1),      # plain BPSK at 2.046 Mcps
 ])
 def test_track_convergence(name, prn, sub):
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-    from gnss_dsp_tpu.utils.synth import to_int8_iq
+    from gnss_dsp.track.driver import TrackChannel, track_file
+    from gnss_dsp.utils.synth import to_int8_iq
     import io as _io
 
     sig = get_signal(name)
@@ -176,8 +176,8 @@ def test_track_convergence(name, prn, sub):
 def test_track_glonass_fdma_ratio():
     """Two FDMA channels tracked in one batch get distinct carrier-aiding
     ratios (track-glonass-l1.py:38-40)."""
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-    from gnss_dsp_tpu.utils.synth import to_int8_iq
+    from gnss_dsp.track.driver import TrackChannel, track_file
+    from gnss_dsp.utils.synth import to_int8_iq
     import io as _io
 
     sig = get_signal("glonass-l1")
@@ -196,8 +196,8 @@ def test_track_glonass_fdma_channel_offsets():
     carrier wipeoff must include its own 562500*chan on top of the shared
     channel-0 coffset (track-glonass-l1.py:161).  Regression for the
     round-2 sky-capture code-lock failure."""
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-    from gnss_dsp_tpu.utils.synth import to_int8_iq
+    from gnss_dsp.track.driver import TrackChannel, track_file
+    from gnss_dsp.utils.synth import to_int8_iq
     import io as _io
 
     sig = get_signal("glonass-l1")
@@ -222,8 +222,8 @@ def test_track_glonass_fdma_channel_offsets():
 def test_track_l2cl_long_code():
     """L2CL: 767250-chip code, 1.5 s period tracked in 1500 sub-blocks —
     exercises the int/frac split code phase at chip indices ~7.6e5."""
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-    from gnss_dsp_tpu.utils.synth import to_int8_iq
+    from gnss_dsp.track.driver import TrackChannel, track_file
+    from gnss_dsp.utils.synth import to_int8_iq
     import io as _io
 
     sig = get_signal("gps-l2cl")
@@ -253,8 +253,8 @@ def test_track_l2cl_long_code():
 
 def test_track_xona_pll_start():
     """Xona starts directly in PLL with hot gains (track-xona-x1p.py:151)."""
-    from gnss_dsp_tpu.track.driver import TrackChannel, make_params, track_file
-    from gnss_dsp_tpu.utils.synth import to_int8_iq
+    from gnss_dsp.track.driver import TrackChannel, make_params, track_file
+    from gnss_dsp.utils.synth import to_int8_iq
     import io as _io
 
     sig = get_signal("xona-x1p")
@@ -272,7 +272,7 @@ def test_track_xona_pll_start():
 
 def test_acquire_glonass_fdma_batched():
     """All 15 FDMA channels in one grid program == the per-channel loop."""
-    from gnss_dsp_tpu.acquire.engine import acquire_signal_fdma
+    from gnss_dsp.acquire.engine import acquire_signal_fdma
 
     sig = get_signal("glonass-l1")
     chans = list(range(-3, 4))

@@ -1,7 +1,7 @@
-"""Synthetic sky-capture container + workload plumbing (VERDICT round-1
-item 10).  The FULL acquire-all.sh / track-all-gnss-2017-L1L2L5.sh run
-takes ~1 h on this CPU and is driven by tools/run_sky_workload.py (its
-validated output table lives in PARITY.md); this default-suite test
+"""Synthetic sky-capture container + workload plumbing.  The FULL
+acquire-all.sh / track-all-gnss-2017-L1L2L5.sh run takes about an hour
+on a CPU and is driven by tools/run_sky_workload.py; this default-suite
+test
 proves the container format, the packet2wav_3ch stand-in, and one
 band-1 pipeline end to end on a small capture.
 """
@@ -42,7 +42,7 @@ def test_container_demux_and_gps_l1_pipeline(tmp_path, monkeypatch):
     p1 = subprocess.Popen(
         [sys.executable, os.path.join(REPO, "tools", "packet2wav_3ch"), "1"],
         stdin=open(cap, "rb"), stdout=subprocess.PIPE)
-    env = dict(os.environ, GNSS_DSP_CPU="1")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     p2 = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "acquire-gps-l1.py"),
          "--prn", "21", "--time", "20",

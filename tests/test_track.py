@@ -4,10 +4,10 @@ import io
 
 import numpy as np
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.models.codes import gps_ca
-from gnss_dsp_tpu.track import TrackChannel, track_file
-from gnss_dsp_tpu.utils import synth
+from gnss_dsp.models import get_signal
+from gnss_dsp.models.codes import gps_ca
+from gnss_dsp.track import TrackChannel, track_file
+from gnss_dsp.utils import synth
 
 
 def _make_stream(prn, fs, seconds, doppler, code_phase, cn0=47.0, seed=11):
@@ -85,14 +85,14 @@ def test_two_channel_batched_tracking():
 
 
 # ---------------------------------------------------------------------------
-# Loop-filter / engine unit coverage (VERDICT round-1 "weak" item 6)
+# Loop-filter / engine unit coverage
 
 def test_mode_schedule_edges():
     """FLL_WIDE -> FLL_NARROW -> PLL at exactly the dwell boundaries
     (track-gps-l1.py:155-158)."""
     import jax.numpy as jnp
-    from gnss_dsp_tpu.track.driver import make_params
-    from gnss_dsp_tpu.track.engine import _mode_of
+    from gnss_dsp.track.driver import make_params
+    from gnss_dsp.track.engine import _mode_of
 
     sig = get_signal("gps-l1")
     p = make_params(sig, 4.096e6, coffset=0.0, loop_dwells=(500, 300))
@@ -108,8 +108,8 @@ def test_dll_zero_denominator_no_nan():
     """All-zero samples (E = P = L = 0) must not NaN the DLL
     (the reference would divide 0/0 at track-gps-l1.py:80)."""
     import jax.numpy as jnp
-    from gnss_dsp_tpu.track.driver import make_params
-    from gnss_dsp_tpu.track.engine import init_state, track_scan
+    from gnss_dsp.track.driver import make_params
+    from gnss_dsp.track.engine import init_state, track_scan
 
     sig = get_signal("gps-l1")
     fs = 2.048e6
@@ -130,8 +130,8 @@ def test_stall_refill_matches_uninterrupted():
     uninterrupted scan — the EOF/stall boundary the reference handles by
     blocking reads (track-gps-l1.py:165-167)."""
     import jax.numpy as jnp
-    from gnss_dsp_tpu.track.driver import make_params
-    from gnss_dsp_tpu.track.engine import init_state, track_scan
+    from gnss_dsp.track.driver import make_params
+    from gnss_dsp.track.engine import init_state, track_scan
 
     sig = get_signal("gps-l1")
     fs = 2.048e6
@@ -170,9 +170,9 @@ def test_checkpoint_mid_subblock_resume():
     """Checkpoint taken MID code period of a sub-divided signal (E1B,
     4 sub-blocks): resume is bit-exact including n_full/sub_j carry."""
     import jax.numpy as jnp
-    from gnss_dsp_tpu.track.driver import make_params
-    from gnss_dsp_tpu.track.engine import init_state, track_scan
-    from gnss_dsp_tpu.track import checkpoint
+    from gnss_dsp.track.driver import make_params
+    from gnss_dsp.track.engine import init_state, track_scan
+    from gnss_dsp.track import checkpoint
 
     sig = get_signal("galileo-e1b")
     assert sig.sub_blocks == 4
@@ -216,7 +216,7 @@ def test_coherent_overlay_tracking():
     destroys the gain — proving the wipeoff is what's doing the work."""
     import dataclasses
 
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
+    from gnss_dsp.track.driver import TrackChannel, track_file
 
     sig = get_signal("beidou-b1i")
     fs = 4.096e6

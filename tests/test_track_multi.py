@@ -2,7 +2,9 @@
 channels of different signals in ONE scan must reproduce each signal's
 own single-signal trajectories.  Framework extension with no reference
 analog (the reference runs one process per track script) — enabled by
-the runtime sigp lanes of round 4.
+the runtime sigp lanes.  The *_refills cases stream the capture in 4 ms
+chunks, so every few blocks the driver refills, rebases the per-channel
+pointers and re-enters the scan.
 """
 
 import io
@@ -10,9 +12,9 @@ import io
 import numpy as np
 import pytest
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-from gnss_dsp_tpu.utils import synth
+from gnss_dsp.models import get_signal
+from gnss_dsp.track.driver import TrackChannel, track_file
+from gnss_dsp.utils import synth
 
 FS = 8.192e6
 COFF = 900.0
@@ -45,23 +47,25 @@ def _rows(rows, n=30):
     return np.array([[r[k] for k in keys] for r in rows[:n]])
 
 
-def _run_single(data, blocks):
+def _run_single(data, blocks, chunk_ms=2000.0):
     out = []
     for name, prn, dop, cp in TRIO:
         sig = get_signal(name)
         chans = [TrackChannel(prn=prn, doppler=dop, code_offset=cp)]
         track_file(sig, io.BytesIO(data), FS, COFF, chans,
-                   loop_dwells=(8, 8), max_blocks=blocks)
+                   loop_dwells=(8, 8), max_blocks=blocks,
+                   chunk_ms=chunk_ms)
         out.append(chans[0].rows)
     return out
 
 
-def _run_multi(data, blocks):
+def _run_multi(data, blocks, chunk_ms=2000.0):
     sigs = [get_signal(name) for name, *_ in TRIO]
     chans = [TrackChannel(prn=p, doppler=d, code_offset=cp)
              for _, p, d, cp in TRIO]
     track_file(sigs[0], io.BytesIO(data), FS, COFF, chans,
-               loop_dwells=(8, 8), max_blocks=blocks, sigs=sigs)
+               loop_dwells=(8, 8), max_blocks=blocks, sigs=sigs,
+               chunk_ms=chunk_ms)
     return [c.rows for c in chans]
 
 
@@ -87,13 +91,11 @@ def test_multi_matches_single_xla():
     _compare(_run_single(data, 40), _run_multi(data, 40))
 
 
-def test_multi_matches_single_fused(monkeypatch):
-    monkeypatch.setenv("GNSS_DSP_PALLAS_INTERPRET", "1")
-    from gnss_dsp_tpu.track import driver as drv
-
-    monkeypatch.setattr(drv, "_pallas_ok", lambda *a, **k: True)
+def test_multi_matches_single_refills():
     data = _scene()
-    _compare(_run_single(data, 32), _run_multi(data, 32))
+    # stalled steps at each chunk end count against max_blocks: give the
+    # refilled run room to emit the compared rows
+    _compare(_run_single(data, 32), _run_multi(data, 64, chunk_ms=4.0))
 
 
 def test_multi_cli(capsys):
@@ -101,7 +103,7 @@ def test_multi_cli(capsys):
     import os
     import tempfile
 
-    from gnss_dsp_tpu.cli.track import main as track_main
+    from gnss_dsp.cli.track import main as track_main
 
     data = _scene()
     with tempfile.NamedTemporaryFile(suffix=".iq", delete=False) as f:
@@ -123,15 +125,11 @@ def test_multi_cli(capsys):
         os.unlink(path)
 
 
-def test_multi_mesh_sharded(monkeypatch):
+def test_multi_mesh_sharded():
     """Mixed-constellation tracking under --mesh: channels + their sigp
-    rows shard over 'sat' through the fused shard_map branch
-    (parallel/track) — same trajectories as the unsharded multi run."""
-    monkeypatch.setenv("GNSS_DSP_PALLAS_INTERPRET", "1")
-    from gnss_dsp_tpu.track import driver as drv
-
-    monkeypatch.setattr(drv, "_pallas_ok", lambda *a, **k: True)
-    from gnss_dsp_tpu.parallel.mesh import make_mesh
+    rows shard over 'sat' under shard_map (parallel/track) — same
+    trajectories as the unsharded multi run."""
+    from gnss_dsp.parallel.mesh import make_mesh
 
     data = _scene()
     sigs = [get_signal(name) for name, *_ in TRIO]
@@ -151,17 +149,12 @@ def test_multi_mesh_sharded(monkeypatch):
                                       err_msg=name)
 
 
-def test_multi_coherent_mixed(monkeypatch):
+def test_multi_coherent_mixed():
     """Mixed-constellation tracking with PER-CHANNEL coherent spans
     (runtime SIGP_COH/SIGP_NOV lanes): a B1I channel integrates 20
     NH20-wiped periods coherently while a GPS L1 channel (no overlay)
     runs non-coherently in the SAME compiled scan — each matching its
     own single-signal run."""
-    monkeypatch.setenv("GNSS_DSP_PALLAS_INTERPRET", "1")
-    from gnss_dsp_tpu.track import driver as drv
-
-    monkeypatch.setattr(drv, "_pallas_ok", lambda *a, **k: True)
-
     duo = [("beidou-b1i", 34, 400.0, 1500.6), ("gps-l1", 7, 900.0, 317.25)]
     n = int(FS * 0.06)
     x = np.zeros(n, np.complex64)
@@ -205,7 +198,7 @@ def test_multi_coherent_mixed(monkeypatch):
                                    err_msg=name)
 
 
-# TMBOC in a mix (round 5): the slot gate is the runtime SIGP_TM lane,
+# TMBOC in a mix: the slot gate is the runtime SIGP_TM lane,
 # so gps-l1cp joins a tmboc-kind shared program whose other channels
 # (BPSK, CBOC) carry tm = 0 — each must reproduce its single-signal run.
 TMBOC_TRIO = [
@@ -229,13 +222,14 @@ def _scene_list(trio, seconds=0.05):
     return synth.to_int8_iq(x, scale=24.0)
 
 
-def _run_trio(data, blocks, trio, multi):
+def _run_trio(data, blocks, trio, multi, chunk_ms=2000.0):
     sigs = [get_signal(name) for name, *_ in trio]
     if multi:
         chans = [TrackChannel(prn=p, doppler=d, code_offset=cp)
                  for _, p, d, cp in trio]
         track_file(sigs[0], io.BytesIO(data), FS, COFF, chans,
-                   loop_dwells=(8, 8), max_blocks=blocks, sigs=sigs)
+                   loop_dwells=(8, 8), max_blocks=blocks, sigs=sigs,
+                   chunk_ms=chunk_ms)
         return [c.rows for c in chans]
     out = []
     for (name, prn, dop, cp), sig in zip(trio, sigs):
@@ -261,20 +255,15 @@ def test_multi_tmboc_mixed_xla():
                   _run_trio(data, 40, TMBOC_TRIO, True))
 
 
-def test_multi_tmboc_mixed_fused(monkeypatch):
-    monkeypatch.setenv("GNSS_DSP_PALLAS_INTERPRET", "1")
-    from gnss_dsp_tpu.track import driver as drv
-
-    monkeypatch.setattr(drv, "_pallas_ok", lambda *a, **k: True)
+def test_multi_tmboc_mixed_refills():
     data = _scene_list(TMBOC_TRIO)
     _compare_trio(TMBOC_TRIO, _run_trio(data, 32, TMBOC_TRIO, False),
-                  _run_trio(data, 32, TMBOC_TRIO, True))
+                  _run_trio(data, 64, TMBOC_TRIO, True, chunk_ms=4.0))
 
 
-# Streamed long codes in a mix (round 5): a mix containing gps-l2cl
-# (767250 chips, HBM-streamed rows) switches the whole program to the
-# streamed layout; short-code channels stream from their zero-padded
-# slot of the shared row table.
+# Long codes in a mix: gps-l2cl (767250 chips) shares the program with
+# a short code; the short code's table row is zero-padded to the long
+# one (its gather index stays below its own runtime length).
 STREAM_DUO = [
     # code phase near the period end: the driver discards samples
     # to the first code boundary, and l2cl's period is 1.5 s
@@ -289,11 +278,7 @@ def test_multi_streamed_long_code_xla():
                   _run_trio(data, 40, STREAM_DUO, True))
 
 
-def test_multi_streamed_long_code_fused(monkeypatch):
-    monkeypatch.setenv("GNSS_DSP_PALLAS_INTERPRET", "1")
-    from gnss_dsp_tpu.track import driver as drv
-
-    monkeypatch.setattr(drv, "_pallas_ok", lambda *a, **k: True)
+def test_multi_streamed_long_code_refills():
     data = _scene_list(STREAM_DUO)
-    _compare_trio(STREAM_DUO, _run_trio(data, 24, STREAM_DUO, False),
-                  _run_trio(data, 24, STREAM_DUO, True))
+    _compare_trio(STREAM_DUO, _run_trio(data, 40, STREAM_DUO, False),
+                  _run_trio(data, 48, STREAM_DUO, True, chunk_ms=4.0))

@@ -4,9 +4,9 @@ probe, profiling counters."""
 import numpy as np
 import jax.numpy as jnp
 
-from gnss_dsp_tpu.cli.cn0 import cn0
-from gnss_dsp_tpu.ops.squaring import squaring
-from gnss_dsp_tpu.utils.ranges import parse_list_ranges, parse_list_floats
+from gnss_dsp.cli.cn0 import cn0
+from gnss_dsp.ops.squaring import squaring
+from gnss_dsp.utils.ranges import parse_list_ranges, parse_list_floats
 
 
 def test_cn0_formula(rng):
@@ -44,9 +44,9 @@ def test_ranges_parser():
 
 def test_correlation_shape_probe(rng):
     """The probe's peak sits at the true code offset."""
-    from gnss_dsp_tpu.track.probe import correlation_shape
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu.utils.synth import synth_iq
+    from gnss_dsp.track.probe import correlation_shape
+    from gnss_dsp.models import get_signal
+    from gnss_dsp.utils.synth import synth_iq
 
     sig = get_signal("gps-l1")
     fs = 4.096e6
@@ -65,7 +65,7 @@ def test_correlation_shape_probe(rng):
 
 
 def test_counters():
-    from gnss_dsp_tpu.utils.profiling import Counters
+    from gnss_dsp.utils.profiling import Counters
 
     c = Counters()
     c.samples += 1000
@@ -78,8 +78,8 @@ def test_from_int8_iq_bit_identical(rng):
     """Device-side int8 deinterleave (cplx.from_int8_iq — the CLI
     upload path) is bit-identical to the host-deinterleave +
     from_numpy route, including the device-side zero pad."""
-    from gnss_dsp_tpu.ops import cplx
-    from gnss_dsp_tpu.utils import io as uio
+    from gnss_dsp.ops import cplx
+    from gnss_dsp.utils import io as uio
 
     raw = rng.integers(-128, 128, size=2 * 1000, dtype=np.int64
                        ).astype(np.int8)
@@ -99,7 +99,7 @@ def test_synth_iq_chunked_continuation_exact():
     correctness contract, tools/synth_sky.py)."""
     import numpy as np
 
-    from gnss_dsp_tpu.utils.synth import synth_iq
+    from gnss_dsp.utils.synth import synth_iq
 
     rng = np.random.default_rng(5)
     code = rng.choice([-1.0, 1.0], 1023)
@@ -117,7 +117,7 @@ def test_int4_pack_unpack_roundtrip():
     of the int8 stream, exactly."""
     import numpy as np
 
-    from gnss_dsp_tpu.ops import cplx
+    from gnss_dsp.ops import cplx
 
     rng = np.random.default_rng(3)
     raw = rng.integers(-127, 128, 4096, dtype=np.int16).astype(np.int8)
@@ -135,9 +135,9 @@ def test_int4_streaming_tracks(monkeypatch):
 
     import numpy as np
 
-    from gnss_dsp_tpu.models import get_signal
-    from gnss_dsp_tpu.track.driver import TrackChannel, track_file
-    from gnss_dsp_tpu.utils import synth
+    from gnss_dsp.models import get_signal
+    from gnss_dsp.track.driver import TrackChannel, track_file
+    from gnss_dsp.utils import synth
 
     monkeypatch.setenv("GNSS_DSP_UPLOAD_INT4", "1")
     sig = get_signal("gps-l1")

@@ -1,15 +1,14 @@
-"""Per-family fused tracking throughput on the real chip (round-4
-VERDICT items 2/3/7: every distinct tracking engine shape gets a
-sustained number, not just the GPS L1 BPSK fast path).
+"""Per-family tracking throughput: every distinct tracking engine shape
+gets a sustained number, not just the GPS L1 BPSK path.
 
 Families benched (engine shape in parens):
-  gps-l1        BPSK, sub=1           (the round-3 anchor)
+  gps-l1        BPSK, sub=1
   beidou-b1i    BPSK, sub=1, L=2046
   galileo-e1b   CBOC, sub=4           (track-galileo-e1b.py:164-170)
   gps-l1cp      TMBOC, sub=10         (track-gps-l1cp.py:176-181)
   gps-l2cm      RZ-even, sub=20       (track-gps-l2cm.py:164-171)
-  gps-l2cl      RZ-odd, sub=1500, HBM-streamed 767250-chip code
-  glonass-l1-p  BPSK, sub=1000, HBM-streamed 5.11M-chip code
+  gps-l2cl      RZ-odd, sub=1500, 767250-chip code
+  glonass-l1-p  BPSK, sub=1000, 5.11M-chip code
 
 Each family synthesizes C channels at a per-family fs (~2-4x chip rate,
 matching how the reference tracks at >= Nyquist of the code), runs
@@ -17,7 +16,7 @@ track_scan for NB sub-blocks, and reports aggregate Msamples/s
 best-of-3 with a carrier-convergence self-check.
 
 Usage: [BENCH_C=32] [BENCH_NB=900] [BENCH_FAMS=gps-l1,...]
-       [BENCH_PATH=fused|scan|both] python tools/bench_track_families.py
+       python tools/bench_track_families.py
 """
 import os
 import sys
@@ -27,14 +26,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.track.driver import make_params, build_code_rows
-from gnss_dsp_tpu.track.engine import init_state, track_scan
-from gnss_dsp_tpu.utils import synth
-from gnss_dsp_tpu.ops import nco as _nco
+from gnss_dsp.models import get_signal
+from gnss_dsp.track.driver import make_params
+from gnss_dsp.track.engine import init_state, track_scan
+from gnss_dsp.utils import synth
+from gnss_dsp.ops import nco as _nco
 
-# signal -> (fs, default C cap).  The streamed long codes carry 3-21 MB
-# of extended f32 row per channel, so their channel counts stay modest.
+# signal -> (fs, default C cap)
 FAMILIES = {
     "gps-l1": (4.096e6, 32),
     "beidou-b1i": (8.192e6, 32),
@@ -47,8 +45,8 @@ FAMILIES = {
 
 
 def bench_family(signame: str, C: int | None = None, NB: int = 900,
-                 path: str = "fused", repeats: int = 3, quiet: bool = False):
-    """Returns {path: Msamples/s aggregate} for one signal family."""
+                 repeats: int = 3, quiet: bool = False) -> float:
+    """Aggregate Msamples/s for one signal family."""
     fs, cmax = FAMILIES[signame]
     C = min(C or cmax, cmax)
     sig = get_signal(signame)
@@ -77,11 +75,8 @@ def bench_family(signame: str, C: int | None = None, NB: int = 900,
           ).astype(np.complex64) * 0.1
 
     params = make_params(sig, fs, coffset=0.0, loop_dwells=(200, 200),
-                         use_pallas=True, chan=prns[0])
-    assert params.fused_scan, signame
-    rows_np, pad = build_code_rows(code_np, params, sig.chip_rate / fs)
-    rows_ext = jnp.asarray(rows_np)
-    tail = pad + (-(n + pad)) % 1024
+                         chan=prns[0])
+    tail = params.nmax + (-(n + params.nmax)) % 1024
     xp = np.concatenate([x, np.zeros(tail, np.complex64)])
     xd = (jnp.asarray(np.ascontiguousarray(xp.real.astype(np.float32))),
           jnp.asarray(np.ascontiguousarray(xp.imag.astype(np.float32))))
@@ -98,8 +93,7 @@ def bench_family(signame: str, C: int | None = None, NB: int = 900,
                    ptr=np.zeros(C, np.int32))
         t0 = time.perf_counter()
         _, rf, ri = track_scan(xd, jnp.int32(n), tab, init_state(**st0), p,
-                               NB, ratios=ratios, code_rows_ext=rows_ext,
-                               coffset_df=cdf)
+                               NB, ratios=ratios, coffset_df=cdf)
         rf = np.asarray(rf)
         compile_s = time.perf_counter() - t0
         best = np.inf
@@ -107,8 +101,7 @@ def bench_family(signame: str, C: int | None = None, NB: int = 900,
             t0 = time.perf_counter()
             _, rf2, ri2 = track_scan(xd, jnp.int32(n), tab,
                                      init_state(**st0), p, NB,
-                                     ratios=ratios, code_rows_ext=rows_ext,
-                                     coffset_df=cdf)
+                                     ratios=ratios, coffset_df=cdf)
             rf2 = np.asarray(rf2)
             best = min(best, time.perf_counter() - t0)
         samples = float(np.asarray(ri2)[..., 0].sum())
@@ -123,19 +116,13 @@ def bench_family(signame: str, C: int | None = None, NB: int = 900,
             assert err < 5.0, (signame, cf_tail, dops[:8])
         return rate
 
-    out = {}
-    if path in ("fused", "both"):
-        out["fused"] = one(params, "fused")
-    if path in ("scan", "both"):
-        out["scan"] = one(params._replace(fused_scan=False), "scan ")
-    return out
+    return one(params, "scan")
 
 
 if __name__ == "__main__":
     C = os.environ.get("BENCH_C")
     NB = int(os.environ.get("BENCH_NB", "900"))
-    PATH = os.environ.get("BENCH_PATH", "fused")
     fams = os.environ.get("BENCH_FAMS")
     fams = fams.split(",") if fams else list(FAMILIES)
     for name in fams:
-        bench_family(name, C=int(C) if C else None, NB=NB, path=PATH)
+        bench_family(name, C=int(C) if C else None, NB=NB)

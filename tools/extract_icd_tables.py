@@ -7,8 +7,8 @@ IS-GPS-705, Galileo OS SIS ICD, BeiDou ICDs, Xona ICD) — data, not code.
 This script reads them out of /root/reference (which transcribes those ICD
 tables) and packs them into:
 
-  gnss_dsp_tpu/models/codes/data/icd_tables.npz   construction constants
-  gnss_dsp_tpu/models/codes/data/reference_code_hashes.json            sha256 of every full
+  gnss_dsp/models/codes/data/icd_tables.npz   construction constants
+  gnss_dsp/models/codes/data/reference_code_hashes.json            sha256 of every full
       {0,1} chip sequence the reference generates, per (signal, prn) —
       the cross-implementation golden vectors for tests/test_codes.py.
 
@@ -31,10 +31,10 @@ REF = os.environ.get("GNSS_REF", "/root/reference")
 sys.path.insert(0, REF)
 
 OUT_NPZ = os.path.join(os.path.dirname(__file__), "..",
-                       "gnss_dsp_tpu", "models", "codes", "data",
+                       "gnss_dsp", "models", "codes", "data",
                        "icd_tables.npz")
 OUT_JSON = os.path.join(os.path.dirname(__file__), "..",
-                        "gnss_dsp_tpu", "models", "codes", "data", "reference_code_hashes.json")
+                        "gnss_dsp", "models", "codes", "data", "reference_code_hashes.json")
 
 tables: dict[str, np.ndarray] = {}
 hashes: dict[str, dict[str, str]] = {}

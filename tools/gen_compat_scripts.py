@@ -35,7 +35,7 @@ TEMPLATE = """#!/usr/bin/env python
 import os
 import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from gnss_dsp_tpu.cli.{mod} import main
+from gnss_dsp.cli.{mod} import main
 sys.exit(main({sig!r}, sys.argv[1:]))
 """
 
@@ -44,7 +44,7 @@ UTIL_TEMPLATE = """#!/usr/bin/env python
 import os
 import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from gnss_dsp_tpu.cli.{mod} import main
+from gnss_dsp.cli.{mod} import main
 sys.exit(main(sys.argv[1:]))
 """
 

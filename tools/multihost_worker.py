@@ -23,9 +23,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from gnss_dsp_tpu.models import get_signal  # noqa: E402
-from gnss_dsp_tpu.parallel.mesh import init_multihost, make_mesh  # noqa: E402
-from gnss_dsp_tpu.parallel.acquire import acquire_signal_sharded  # noqa: E402
+from gnss_dsp.models import get_signal  # noqa: E402
+from gnss_dsp.parallel.mesh import init_multihost, make_mesh  # noqa: E402
+from gnss_dsp.parallel.acquire import acquire_signal_sharded  # noqa: E402
 
 init_multihost(f"127.0.0.1:{port}", nproc, pid)
 assert jax.process_count() == nproc, jax.process_count()
@@ -39,9 +39,9 @@ task = str(data["task"]) if "task" in data else "acquire"
 if task == "track":
     import jax.numpy as jnp
 
-    from gnss_dsp_tpu.parallel.track import track_scan_sharded
-    from gnss_dsp_tpu.track.driver import make_params
-    from gnss_dsp_tpu.track.engine import init_state
+    from gnss_dsp.parallel.track import track_scan_sharded
+    from gnss_dsp.track.driver import make_params
+    from gnss_dsp.track.engine import init_state
 
     sig = get_signal(str(data["sig"]))
     fs = float(data["fs"])

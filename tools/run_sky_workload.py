@@ -1,6 +1,6 @@
 """Run the full reference workload (acquire-all.sh + track-all-gnss-
 2017-L1L2L5.sh) end-to-end on the synthetic 3-band sky capture and
-validate every golden seed (VERDICT round-1 item 10).
+validate every golden seed.
 
     python tools/run_sky_workload.py [capture.pcap] [ms]
 
@@ -54,8 +54,10 @@ TRACK_EXPECT = {
 
 
 def sh(script, data, dest):
+    # the workload scripts start one process per script, one after the
+    # other: each holds the device alone while it runs
     env = dict(os.environ, PATH=os.path.join(REPO, "tools")
-               + os.pathsep + os.environ["PATH"], GNSS_DSP_CPU="1")
+               + os.pathsep + os.environ["PATH"])
     r = subprocess.run(["sh", os.path.join(REPO, script), data, dest],
                        env=env, capture_output=True, text=True,
                        timeout=21600)
@@ -102,7 +104,12 @@ def main():
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     batched = "--batched" in flags
     real = "--real" in flags
-    data = args[0] if args else "/tmp/gnss-sky-synth.pcap"
+    import tempfile
+
+    tmp = tempfile.gettempdir()
+    acq_out = os.path.join(tmp, "sky-acq-out")
+    track_out = os.path.join(tmp, "sky-track-out")
+    data = args[0] if args else os.path.join(tmp, "gnss-sky-synth.pcap")
     ms = int(args[1]) if len(args) > 1 else 120
     if real:
         # `make verify` mode: the REAL 2017-04-27 sky recording (network-
@@ -142,21 +149,21 @@ def main():
     if batched:
         # single-process runner: same CLI entry points, same argv, same
         # output files — one JAX runtime, one demux + upload per band
-        # (gnss_dsp_tpu/cli/workload; the cold-path closer)
+        # (gnss_dsp/cli/workload)
         def sh_batched(what, dest):
             r = subprocess.run(
-                [sys.executable, "-m", "gnss_dsp_tpu.cli.workload",
+                [sys.executable, "-m", "gnss_dsp.cli.workload",
                  what, data, dest],
                 cwd=REPO, capture_output=True, text=True, timeout=21600)
             sys.stderr.write(r.stderr[-4000:])
             assert r.returncode == 0, (what, r.stderr[-3000:])
 
         print("== acquire-all (batched single-process) ==")
-        sh_batched("acquire-all", "/tmp/sky-acq-out")
-        f1 = check_acq("/tmp/sky-acq-out")
+        sh_batched("acquire-all", acq_out)
+        f1 = check_acq(acq_out)
         print("== track-all (batched single-process) ==")
-        sh_batched("track-all", "/tmp/sky-track-out")
-        f2 = check_track("/tmp/sky-track-out")
+        sh_batched("track-all", track_out)
+        f2 = check_track(track_out)
         if f1 or f2:
             print("FAILURES:", f1 + f2)
             sys.exit(1)
@@ -164,11 +171,11 @@ def main():
               "tracks recovered their golden seeds (batched)")
         return
     print("== acquire-all.sh ==")
-    sh("acquire-all.sh", data, "/tmp/sky-acq-out")
-    f1 = check_acq("/tmp/sky-acq-out")
+    sh("acquire-all.sh", data, acq_out)
+    f1 = check_acq(acq_out)
     print("== track-all-gnss-2017-L1L2L5.sh ==")
-    sh("track-all-gnss-2017-L1L2L5.sh", data, "/tmp/sky-track-out")
-    f2 = check_track("/tmp/sky-track-out")
+    sh("track-all-gnss-2017-L1L2L5.sh", data, track_out)
+    f2 = check_track(track_out)
     if f1 or f2:
         print("FAILURES:", f1 + f2)
         sys.exit(1)

@@ -5,10 +5,10 @@ within one bin) of
   (a) the reference-style search — 1 ms coherent + `ms` non-coherent
       magnitude sums (acquire_signal; acquire-gps-l1.py:26-39 semantics),
   (b) the secondary-wiped extended-coherent engine over the same data
-      span (acquire_signal_coherent, fused kernel path on TPU).
+      span (acquire_signal_coherent).
 
 K independent noise draws per point, random planted code phase and
-overlay alignment each trial.  Prints a markdown table for BASELINE.md.
+overlay alignment each trial.  Prints a markdown table.
 
 Usage: python tools/sensitivity_curve.py [signal] [trials]
        (default beidou-b1i, 10 trials/point)
@@ -24,10 +24,10 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from gnss_dsp_tpu.models import get_signal                     # noqa: E402
-from gnss_dsp_tpu.acquire.engine import acquire_signal         # noqa: E402
-from gnss_dsp_tpu.acquire.coherent import acquire_signal_coherent  # noqa: E402
-from gnss_dsp_tpu.utils.synth import synth_iq                  # noqa: E402
+from gnss_dsp.models import get_signal                     # noqa: E402
+from gnss_dsp.acquire.engine import acquire_signal         # noqa: E402
+from gnss_dsp.acquire.coherent import acquire_signal_coherent  # noqa: E402
+from gnss_dsp.utils.synth import synth_iq                  # noqa: E402
 
 
 def run(signame="beidou-b1i", trials=10, cn0s=(24, 26, 28, 30, 32, 34),

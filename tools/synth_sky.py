@@ -1,5 +1,5 @@
-"""Synthesize the 2017-04-27 3-band sky capture (VERDICT r1 item 10,
-extended round 5 to arbitrarily long captures via chunked generation).
+"""Synthesize the 2017-04-27 3-band sky capture, of any length (chunked
+generation).
 
 The reference Makefile downloads a 7.9-minute 69.984 MHz 3-band recording
 (Makefile:18-20) and demuxes it with the external `packet2wav_3ch` tool
@@ -32,8 +32,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gnss_dsp_tpu.models import get_signal
-from gnss_dsp_tpu.utils.synth import synth_iq
+from gnss_dsp.models import get_signal
+from gnss_dsp.utils.synth import synth_iq
 
 FS = 69.984e6
 FRAME = int(FS // 1000)          # samples per band per 1 ms frame
@@ -132,8 +132,11 @@ def write_capture(out: str, ms: int, cn0: float = 50.0,
     tasks = [(band, c0, cms, sigma, scale,
               progress and c0 == 0 and band == 1)
              for (c0, cms) in chunks for band in (1, 2, 3)]
-    with open(out, "wb") as f, mp.Pool(workers,
-                                       initializer=_malloc_tune) as pool:
+    # spawned (not forked) workers: the caller may hold threads or an
+    # open accelerator backend
+    ctx = mp.get_context("spawn")
+    with open(out, "wb") as f, ctx.Pool(workers,
+                                        initializer=_malloc_tune) as pool:
         it = pool.imap(_band_chunk_int8, tasks)
         for (c0, cms) in chunks:
             frames = np.empty((cms, 3, 2 * FRAME), np.int8)
